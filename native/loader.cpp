@@ -2,7 +2,7 @@
 // to float32 (or copy float64) in parallel chunks.
 //
 // Replaces the reference's collective MPI-IO read
-// (V.read_dense_from_file(fh), test_ALS.cxx:302) for the single-host TPU
+// (V.read_dense_from_file(fh), test_ALS.cxx:302) for the single-host
 // case: the 2.7 GB f64 coil-100 file converts to f32 at memory bandwidth
 // instead of a single-threaded numpy astype pass.
 

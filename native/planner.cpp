@@ -1,6 +1,6 @@
 // Contraction-order planner for dimension-tree / PP-cache chains.
 //
-// TPU-native replacement for the planning role of CTF's contraction engine:
+// Replacement for the planning role of CTF's contraction engine:
 // CTF redistributes and re-plans per contraction at runtime; here layouts
 // are static, so the planner runs once per (shape, rank) and returns
 //   (a) a global mode-contraction priority minimizing peak intermediate
@@ -99,12 +99,12 @@ int plan_tree_split(const int64_t* sizes, int order, int64_t rank,
   return best;
 }
 
-// HBM traffic (elements moved: input reads + output writes) of a chain
+// Memory traffic (elements moved: input reads + output writes) of a chain
 // building a node covering [lo, hi] from an intermediate holding modes
 // [plo, phi] (+rank if has_rank). The DT first-level contractions are
-// bandwidth-bound on TPU (arithmetic intensity ~R against an MXU that
-// wants hundreds), so BYTES — not FLOPs — is the objective that predicts
-// the measured sweep time. The factor-matrix reads are negligible and
+// bandwidth-bound (arithmetic intensity ~R, far below what a matrix unit
+// needs), so BYTES — not FLOPs — is the objective that predicts the sweep
+// time. The factor-matrix reads are negligible and
 // omitted.
 static double node_traffic(const int64_t* sizes, int64_t rank, int plo,
                            int phi, int lo, int hi, bool has_rank) {

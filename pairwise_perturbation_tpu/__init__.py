@@ -1,4 +1,4 @@
-"""pairwise_perturbation_tpu — TPU-native Pairwise Perturbation ALS framework.
+"""pairwise_perturbation_tpu — Pairwise Perturbation ALS in JAX for NVIDIA GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 LinjianMa/pairwise-perturbation (CTF/MPI C++): alternating least squares for
@@ -6,7 +6,7 @@ CP and Tucker dense tensor decomposition, accelerated by dimension trees (DT),
 multi-sweep dimension trees (MSDT), low-rank first-contraction updates (LR),
 and pairwise perturbation (PP) with tolerance-triggered restarts.
 
-Layer map (TPU-native equivalents of the reference's layers, see SURVEY.md):
+Layer map (equivalents of the reference's layers, see SURVEY.md):
 
 - ``ops``      — tensor-algebra primitives (MTTKRP, TTMc, Gram/S assembly,
                  residual identities, R x R solves, dimension trees).

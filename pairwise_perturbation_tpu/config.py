@@ -1,15 +1,18 @@
 """Global numeric configuration for the framework.
 
 The reference computes everything in float64 (CTF ``Tensor<>`` = double).
-TPUs emulate f64 slowly, so the default compute dtype here is float32 with
-``Precision.HIGHEST`` matmuls (6-pass bfloat16 on the MXU, ~f32 accurate).
-Tests run on CPU with x64 enabled and pass float64 explicitly to validate
-the algebra against the reference semantics.
+The default compute dtype here is float32, which halves the memory traffic
+of the bandwidth-bound contractions; float64 (``-dtype float64``) runs
+natively on the GPU and reproduces the reference's precision. Every f32
+matmul/einsum runs at ``Precision.HIGHEST``: on an NVIDIA GPU a
+DEFAULT-precision f32 product may run in TF32 (about three decimal digits),
+which the R x R Gram solves cannot tolerate. Tests run on CPU with x64
+enabled and pass float64 explicitly to validate the algebra against the
+reference semantics.
 """
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 import jax
@@ -20,7 +23,8 @@ import jax.numpy as jnp
 class NumericConfig:
     # Compute dtype for tensors/factors.
     dtype: object = jnp.float32
-    # Matmul/einsum precision: HIGHEST keeps R x R Gram solves stable in f32.
+    # Matmul/einsum precision: HIGHEST (IEEE f32, never TF32) keeps the
+    # R x R Gram solves stable in f32.
     precision: jax.lax.Precision = jax.lax.Precision.HIGHEST
     # Relative eigenvalue cutoff for pseudo-inverse solves. The reference
     # takes raw reciprocals of ScaLAPACK singular values (common.cxx:720-722);
@@ -32,21 +36,6 @@ class NumericConfig:
     # Restores backward stability of ill-conditioned solves — the f32
     # equivalent of the reference's f64 ScaLAPACK solves (ops/solve.py).
     solve_refine: int = 2
-    # Use fused Pallas kernels on TPU where available (order-3 MTTKRP).
-    use_pallas: bool = True
-    # Route first-level (chain-root) contractions through the Pallas
-    # mid_contract kernel. Off by default: measured slower than XLA's
-    # einsum on v5e for the coil-100 shapes (see NOTES_ROUND1.md).
-    use_pallas_first: bool = False
-    # Fuse the PP cache build's three chain roots into ONE pass over V
-    # (kernels/mttkrp_pallas.triple_roots) on eligible order-4 shapes
-    # (axis 0 smallest). MEASURED NEGATIVE on v5e coil-100: the fused
-    # kernel costs 11-12 ms vs the XLA 3-pass chain's 7.4 ms — serving
-    # three different-axis contractions from one tile forces small
-    # strided DMA chunks (<= 1 KB contiguous per lane tile) and
-    # R=10-wide GEMMs, which cost more than the two saved V reads.
-    # Kept as a tested experimental path; default OFF.
-    use_pallas_triple: bool = False
 
 
 _cfg = NumericConfig()
@@ -93,7 +82,3 @@ def default_dtype():
 
 def default_precision():
     return _cfg.precision
-
-
-def cpu_test_mode() -> bool:
-    return os.environ.get("JAX_PLATFORMS", "") == "cpu"

@@ -76,7 +76,7 @@ def sparse_diagnostics(V_norm_sq, st, Ws, lam=None, *, mesh=None):
 
 def _diag_and_log(V_norm_sq, st, Ws, lam, clock, plot, it, tol, pp_flag,
                   history, mesh=None):
-    cpm._sync_counted(clock, Ws)
+    jax.block_until_ready(Ws)
     with clock.exclude():
         gn, diffV = tracing.timed("sparse.diagnostics", sparse_diagnostics,
                                   V_norm_sq, st, Ws, lam, mesh=mesh)
@@ -102,7 +102,6 @@ def als_cp_sparse(st, Ws, cfg: cpm.CPConfig,
     with clock.exclude():
         cpm.warm_compile(sparse_simple_sweep, st, Ws, lam,
                          solver=cfg.solver, mesh=mesh)
-        cpm.calibrate_rtt(clock, Ws[0])
     history: list = []
     gn, diffV = float("inf"), float("inf")
     it = 0
@@ -139,7 +138,6 @@ def als_cp_pp_sparse(st, Ws, cfg: cpm.CPConfig,
         cpm.warm_compile(sparse_simple_sweep, st, Ws, lam,
                          solver=cfg.solver, mesh=mesh)
         cpm.warm_compile(sparse_pp_build_caches, st, Ws, mesh=mesh)
-        cpm.calibrate_rtt(clock, Ws[0])
     history: list = []
     gn, diffV = float("inf"), float("inf")
     it = 0
@@ -159,7 +157,7 @@ def als_cp_pp_sparse(st, Ws, cfg: cpm.CPConfig,
                                lam, solver=cfg.solver, mesh=mesh)
             dWs = [W - Wp for W, Wp in zip(Ws, W_prev)]
             W_prev = [W for W in Ws]
-            ratios = cpm._host_pull(clock, cpm.factor_norm_ratios(Ws, dWs))
+            ratios = cpm._host_pull(cpm.factor_norm_ratios(Ws, dWs))
             it += 1
             if int(np.sum(np.abs(ratios) < cfg.pp_res_tol)) == len(Ws):
                 quiet = True
@@ -186,7 +184,7 @@ def als_cp_pp_sparse(st, Ws, cfg: cpm.CPConfig,
                 dWs, lam, cfg.ratio_step, solver=cfg.solver)
             it += 1
             pp_sweeps += 1
-            ratios = cpm._host_pull(clock, cpm.factor_norm_ratios(Ws, dWs))
+            ratios = cpm._host_pull(cpm.factor_norm_ratios(Ws, dWs))
             if int(np.sum(np.abs(ratios) > cfg.pp_res_tol)) > 0:
                 break  # restart -> back to the exact phase
     return cpm.CPResult(Ws, gn, diffV, it, gn < cfg.tol, history)

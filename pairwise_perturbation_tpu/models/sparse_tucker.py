@@ -4,7 +4,7 @@ perturbation.
 Reference: the ``-issparse`` path of the legacy Tucker driver — the
 sparsity flag is threaded into the Tucker CTF tensor constructors
 (test_ALS.cxx:229, 364-396) and the same alsTucker / alsTucker_PP
-algorithms run on them. TPU-native scope here:
+algorithms run on them. Scope here:
 
 - exact sweeps contract ONE mode of the COO tensor sparsely (fused-index
   segment_sum, ops/sparse.ttm_dense) and finish the TTMc chain densely —
@@ -112,7 +112,7 @@ def hosvd_sparse(st, ranks, key=None, oversample: int = 8,
 
 def _diag_and_log(V_norm_sq, st, Ws, cn_prev, clock, plot, it, tol,
                   pp_flag, history, mesh=None):
-    cpm._sync_counted(clock, Ws)
+    jax.block_until_ready(Ws)
     with clock.exclude():
         cn, dn, diffV = tracing.timed(
             "sparse_tucker.diagnostics", sparse_tucker_diagnostics,
@@ -147,7 +147,6 @@ def als_tucker_sparse(st, ranks, cfg: tkm.TuckerConfig,
             Ws = [jnp.asarray(W) for W in Ws]
         cpm.warm_compile(sparse_hooi_sweep, st, Ws, list(Ws), ranks=ranks,
                          use_sign=True, mesh=mesh)
-        cpm.calibrate_rtt(clock, Ws[0])
     history: list = []
     cn_prev = jnp.asarray(0.0, Ws[0].dtype)
     dn, diffV = float("inf"), float("inf")
@@ -197,7 +196,6 @@ def als_tucker_pp_sparse(st, ranks, cfg: tkm.TuckerConfig,
         cpm.warm_compile(sparse_hooi_sweep, st, Ws, list(Ws), ranks=ranks,
                          use_sign=True, mesh=mesh)
         cpm.warm_compile(sparse_tucker_build_caches, st, Ws, mesh=mesh)
-        cpm.calibrate_rtt(clock, Ws[0])
     history: list = []
     cn_prev = jnp.asarray(0.0, Ws[0].dtype)
     dn, diffV = float("inf"), float("inf")
@@ -225,7 +223,7 @@ def als_tucker_pp_sparse(st, ranks, cfg: tkm.TuckerConfig,
                                      mesh=mesh)
             dWs = [W - Wp for W, Wp in zip(Ws, W_prev)]
             W_prev = [W for W in Ws]
-            ratios = cpm._host_pull(clock, cpm.factor_norm_ratios(Ws, dWs))
+            ratios = cpm._host_pull(cpm.factor_norm_ratios(Ws, dWs))
             it += 1
             if int(np.sum(np.abs(ratios) < tol_init)) == len(Ws):
                 quiet = True
@@ -255,7 +253,7 @@ def als_tucker_pp_sparse(st, ranks, cfg: tkm.TuckerConfig,
                 pair, Ws, W_init, dWs, ranks=ranks, subspace_iters=0)
             it += 1
             pp_sweeps += 1
-            ratios = cpm._host_pull(clock, cpm.factor_norm_ratios(Ws, dWs))
+            ratios = cpm._host_pull(cpm.factor_norm_ratios(Ws, dWs))
             if int(np.sum(np.abs(ratios) > tol_init)) > 0:
                 break  # restart -> back to the exact phase
         # tol_init decay (als_Tucker.cxx:947-948)

@@ -1,7 +1,7 @@
 """Tensor-contraction primitives for CP / Tucker ALS.
 
-TPU-native replacements for the CTF string-einsum primitives in the
-reference's ``common.cxx``:
+JAX replacements for the CTF string-einsum primitives in the reference's
+``common.cxx``:
 
 - :func:`mttkrp`            <-> ``KhatriRao_contract`` (common.cxx:931-997)
 - :func:`partial_mttkrp`    <-> the chain contractions inside
@@ -26,7 +26,7 @@ All functions are pure and jit-friendly: mode indices are static Python ints,
 einsum specs are generated at trace time, and ``optimize=True`` lets
 opt_einsum pick the pairwise chain (which is exactly the reference's
 one-matrix-at-a-time scheme, but ordered for minimal FLOPs). Large
-contractions therefore lower to MXU matmuls fused by XLA.
+contractions therefore lower to GEMMs that XLA hands to cuBLAS or fuses.
 """
 
 from __future__ import annotations
@@ -55,10 +55,10 @@ def _einsum(spec, *ops, precision=None):
     """einsum with mixed-precision handling.
 
     When any operand is bfloat16 (the mixed-precision mode stores V in
-    bf16; factors stay f32), all operands are cast to bf16 so the MXU runs
-    native single-pass bf16 with f32 accumulation — 2x HBM and 2x MXU over
-    f32, the standard TPU mixed-precision contraction. Type promotion
-    would otherwise upcast the bf16 side and lose both advantages.
+    bf16; factors stay f32), all operands are cast to bf16 so the product
+    runs as bf16 x bf16 with f32 accumulation — half the memory traffic
+    of f32. Type promotion would otherwise upcast the bf16 side and lose
+    that advantage.
     Intermediates and outputs are f32, so only the first contraction of a
     chain (the one touching V) runs in bf16.
     """
@@ -66,8 +66,8 @@ def _einsum(spec, *ops, precision=None):
         if jax.default_backend() == "cpu":
             # CPU lacks a BF16xBF16=F32 dot kernel. bf16 products are
             # exact in f32 (8-bit mantissas), so rounding the operands to
-            # bf16 and multiplying in f32 is numerically equivalent to the
-            # TPU's native bf16 MXU with f32 accumulation.
+            # bf16 and multiplying in f32 is numerically equivalent to a
+            # native bf16 product with f32 accumulation.
             ops = [o.astype(jnp.bfloat16).astype(jnp.float32) for o in ops]
             return jnp.einsum(spec, *ops, optimize=True,
                               precision=jax.lax.Precision.DEFAULT)
@@ -95,28 +95,44 @@ def norm_sq(V):
 # ---------------------------------------------------------------------------
 
 
-def mttkrp(V, factors: Sequence, mode: int, precision=None,
-           use_pallas: bool = None):
+def spans_devices(V) -> bool:
+    """Whether V is laid out over a mesh of several devices: its abstract
+    value names such a mesh (a GSPMD-sharded jit argument, or a block
+    inside shard_map). Known at trace time from V itself, so one call
+    runs the same code whatever number of devices the process sees."""
+    mesh = jax.typeof(V).sharding.mesh
+    return any(n > 1 for n in mesh.shape.values())
+
+
+def mttkrp3_kernel_applies(V) -> bool:
+    """Whether :func:`mttkrp` runs the Triton-route Pallas kernel
+    (ops/kernels/mttkrp3_triton.py): order-3 f32 V on an NVIDIA GPU that
+    is not laid out over several devices. On an H100 it reads V at 81-92%
+    of the measured copy bandwidth at 512^3 where XLA's chain reaches
+    28-69%, and cuts the 200^3 CP-ALS sweep's device time by 26%
+    (PERF.md). A pallas_call cannot be partitioned (XLA would gather a
+    sharded V onto every device), so a V on a mesh takes the XLA chain."""
+    return (V.ndim == 3 and V.dtype == jnp.float32
+            and jax.default_backend() == "gpu" and not spans_devices(V))
+
+
+def mttkrp(V, factors: Sequence, mode: int, precision=None):
     """Exact MTTKRP for ``mode``: M[i_mode, r] = sum V * prod_{j != mode} W_j.
 
     Reference: ``KhatriRao_contract`` — M["dk"] = V["abcd"] W1["ak"] W2["bk"]
-    W3["ck"] (common.cxx:929).
-
-    For order-3 f32 tensors on TPU the fused Pallas kernel (one HBM pass,
-    no (I,J,R) intermediate) is used when ``config.get().use_pallas`` (or
-    the explicit ``use_pallas`` argument) is set.
+    W3["ck"] (common.cxx:929). See :func:`mttkrp3_kernel_applies` for the
+    order-3 kernel.
     """
+    if mttkrp3_kernel_applies(V):
+        from pairwise_perturbation_tpu.ops.kernels import mttkrp3_triton
+        return mttkrp3_triton.mttkrp3(V, list(factors), mode)
+    return mttkrp_xla(V, factors, mode, precision)
+
+
+def mttkrp_xla(V, factors: Sequence, mode: int, precision=None):
+    """:func:`mttkrp` as one einsum that XLA compiles (every order and
+    dtype; the baseline the order-3 kernel is measured against)."""
     order = V.ndim
-    if use_pallas is None:
-        use_pallas = getattr(config.get(), "use_pallas", False)
-    # bf16-stored V: the XLA chain is FASTER than the fused kernel
-    # (0.13 vs 0.21 ms at 200^3 on v5e — bf16 halves the intermediate's
-    # HBM cost, which was the kernel's whole advantage), so only f32
-    # routes to Pallas.
-    if (use_pallas and order == 3 and V.dtype == jnp.float32
-            and jax.default_backend() != "cpu"):
-        from pairwise_perturbation_tpu.ops.kernels import mttkrp_pallas
-        return mttkrp_pallas.mttkrp3_mode(V, factors, mode)
     il = _MODES[:order]
     terms, ops = [il], [V]
     for j in range(order):
@@ -213,8 +229,9 @@ def contraction_priority(shape: Sequence[int]) -> Tuple[int, ...]:
     which on e.g. coil-100 (3 x 128 x 128 x 7200) materializes an
     intermediate 2400x the tensor-free size by contracting the size-3 mode
     first. Contracting the largest mode first keeps every intermediate
-    small — TPU HBM is the scarce resource — while prefix memoization
-    still shares work (all chains follow one global order).
+    small — device memory and its bandwidth are the scarce resources —
+    while prefix memoization still shares work (all chains follow one
+    global order).
 
     Delegates to the native planner (native/planner.cpp
     plan_chain_priority, greedy min-next-intermediate) when the .so is
@@ -239,11 +256,11 @@ def order_by_priority(modes, priority: Sequence[int]) -> Tuple[int, ...]:
 def prepare_layouts(V, modes: Sequence[int], precision=None):
     """Materialize mode-minor permuted copies of V for the given modes.
 
-    On TPU, contracting a non-minor axis makes XLA transpose V (a full
-    extra read+write of HBM) on *every* call. A one-time permuted copy
-    V_perm[m] = moveaxis(V, m, -1) turns every first-level contraction of
-    mode m into a minor-dim GEMM at HBM speed of light. Memory cost:
-    |V| per layout — the classic TPU memory-for-bandwidth trade.
+    Contracting a non-minor axis can make XLA transpose V (a full extra
+    read+write of device memory) on *every* call. A one-time permuted
+    copy V_perm[m] = moveaxis(V, m, -1) turns every first-level
+    contraction of mode m into a minor-dim GEMM. Memory cost: |V| per
+    layout (opt-in via ``-layouts``).
     """
     out = {}
     for m in modes:
@@ -253,29 +270,12 @@ def prepare_layouts(V, modes: Sequence[int], precision=None):
     return out
 
 
-def first_contraction(V, layouts, factor, mode: int, precision=None,
-                      use_pallas: bool = None, interpret: bool = None):
+def first_contraction(V, layouts, factor, mode: int, precision=None):
     """V x_m W_m (Khatri-Rao first level). Output axes: remaining modes
     ascending + rank (same convention as :func:`contract_mode_kr`).
-
-    With ``config.use_pallas_first`` (default off; or the explicit
-    argument), non-minor modes route to the single-HBM-pass Pallas kernel
-    (:func:`...kernels.mttkrp_pallas.mid_contract`); otherwise a mode-minor
-    layout of V is used when available, else a plain einsum.
+    A mode-minor layout of V is used when available, else a plain einsum.
     """
     order = V.ndim
-    if use_pallas is None:
-        use_pallas = getattr(config.get(), "use_pallas_first", False)
-    if use_pallas and (interpret or jax.default_backend() != "cpu"):
-        from pairwise_perturbation_tpu.ops.kernels import mttkrp_pallas
-        rem = tuple(m for m in range(order) if m != mode)
-        # The minor (last) mode is a plain tall GEMM that XLA already runs
-        # near the bandwidth bound; kernels.last_contract measured slower
-        # on v5e, so only non-minor modes route to Pallas.
-        if mode < order - 1 and mttkrp_pallas.mid_contract_eligible(
-                V.shape, mode, V.dtype, factor.shape[1]):
-            return mttkrp_pallas.mid_contract(
-                V, factor, mode, interpret=bool(interpret)), rem
     if layouts and mode in layouts:
         Vp = layouts[mode]
         k = Vp.ndim
@@ -321,10 +321,8 @@ def chain_root_modes_dt(shape, root_split: int = None) -> Tuple[int, ...]:
 
 def _first_contraction_rm(V, layouts, factor, mode: int, precision=None):
     """First-level contraction producing a RANK-MAJOR intermediate
-    (R, remaining modes ascending). Multi-consumer chain intermediates are
-    materialized by XLA in row-major layout; with rank minor a (..., R)
-    tensor pads R -> 128 lanes (12.8x HBM for R = 10), so the PP cache
-    chains keep rank major-most throughout."""
+    (R, remaining modes ascending). The PP cache chains keep rank
+    major-most throughout (see :func:`build_pp_caches`)."""
     order = V.ndim
     rem = tuple(m for m in range(order) if m != mode)
     if layouts and mode in layouts:
@@ -354,9 +352,7 @@ def _contract_mode_kr_rm(T, rem_modes: Tuple[int, ...], factor, mode: int,
     return out, rem_modes[:pos] + rem_modes[pos + 1:]
 
 
-def build_pp_caches(V, factors: Sequence, precision=None, layouts=None,
-                    use_pallas: bool = None, interpret: bool = None,
-                    use_pallas_triple: bool = None):
+def build_pp_caches(V, factors: Sequence, precision=None, layouts=None):
     """Build all PP caches: pair tensors T_{ij}[s_i, s_j, R] for i<j and
     single matrices M_i[s_i, R].
 
@@ -367,55 +363,22 @@ def build_pp_caches(V, factors: Sequence, precision=None, layouts=None,
     Chains follow :func:`contraction_priority` (largest modes first) so
     intermediates stay small. Intended to be called inside jit so XLA
     fuses the whole build. ``layouts`` (from :func:`prepare_layouts`)
-    accelerates the first contraction of each chain; with
-    ``config.use_pallas_first`` (default off) chain roots route to the
-    single-HBM-pass Pallas kernel instead (see :func:`first_contraction`).
+    accelerates the first contraction of each chain.
     """
     order = V.ndim
     priority = contraction_priority(V.shape)
     # The whole chain runs RANK-MAJOR (R leading): chain intermediates
-    # have multiple consumers, so XLA materializes them in row-major
-    # layout — with rank minor a (..., R) tensor pads R -> 128 lanes
-    # (12.8x physical HBM for R = 10; measured as both the cache-build
-    # tail cost and most of the 1.1-2.0 ms PP sweep). Rank-major keeps a
-    # large mode on lanes (~1.01x padding) and is the natural batch
-    # layout for the downstream correction dots.
+    # have multiple consumers, so XLA materializes them, and rank-major
+    # is the natural batch layout for the downstream correction dots
+    # (pair caches are consumed as (R, s_i, s_j)).
     memo: Dict[Tuple[int, ...], Tuple] = {}
-
-    # Triple-root fusion (coil-100 class): when axis 0 is the smallest
-    # mode, EVERY chain's first contraction is one of axes {1, 2, 3},
-    # and the three roots can be computed in ONE pass over V instead of
-    # three (kernels/mttkrp_pallas.triple_roots) — the build's dominant
-    # HBM cost. Gated on config.use_pallas_triple (its OWN gate —
-    # requesting the first_contraction kernel via use_pallas must not
-    # silently switch which kernel serves the chain roots).
-    import pairwise_perturbation_tpu.config as _cfg
-    _use_triple = (_cfg.get().use_pallas_triple if use_pallas_triple is None
-                   else use_pallas_triple)
-    if (_use_triple and order == 4 and priority[-1] == 0
-            and layouts is None):
-        from pairwise_perturbation_tpu.ops.kernels import mttkrp_pallas
-        if mttkrp_pallas.triple_roots_eligible(
-                V.shape, V.dtype, factors[0].shape[1]):
-            o1, o2, o3 = mttkrp_pallas.triple_roots(
-                V, factors[1], factors[2], factors[3],
-                interpret=bool(interpret))
-            memo[(1,)] = (o1, (0, 2, 3))
-            memo[(2,)] = (o2, (0, 1, 3))
-            memo[(3,)] = (o3, (0, 1, 2))
 
     def get(key: Tuple[int, ...]):
         if key not in memo:
             if len(key) == 1:
                 m = key[0]
-                if use_pallas:  # experimental: rank-last kernel + relayout
-                    T2, rem2 = first_contraction(
-                        V, layouts, factors[m], m, precision=precision,
-                        use_pallas=use_pallas, interpret=interpret)
-                    T2 = jnp.moveaxis(T2, -1, 0)
-                else:
-                    T2, rem2 = _first_contraction_rm(
-                        V, layouts, factors[m], m, precision=precision)
+                T2, rem2 = _first_contraction_rm(
+                    V, layouts, factors[m], m, precision=precision)
             else:
                 T, rem = get(key[:-1])
                 T2, rem2 = _contract_mode_kr_rm(T, rem, factors[key[-1]],
@@ -522,13 +485,20 @@ def cp_gradient(V, factors: Sequence, regul=None, precision=None):
         M = mttkrp(V, factors, i, precision=precision)
         S = hadamard_gram(factors, skip_mode=i, regul=regul,
                           precision=precision)
-        grads.append(-M + factors[i] @ S)
+        grads.append(gradsubprob(M, S, factors[i], precision=precision))
     return grads
 
 
-def gradsubprob(M, S, W):
+def gradsubprob(M, S, W, precision=None):
     """grad = -M + W S (common.cxx:1002-1004)."""
-    return -M + W @ S
+    return -M + jnp.matmul(W, S, precision=_prec(precision))
+
+
+def sum_sq(xs):
+    """sum_k ||x_k||_F^2 over a list of arrays, at the configured
+    precision (``jnp.vdot`` is a dot product, which a GPU may run in TF32
+    at DEFAULT precision)."""
+    return sum(jnp.vdot(x, x, precision=_prec(None)) for x in xs)
 
 
 def cp_gradnorm(V, factors: Sequence, regul=None, precision=None):
@@ -543,7 +513,7 @@ def cp_gradnorm(V, factors: Sequence, regul=None, precision=None):
     excluded from dtime like all diagnostics.
     """
     grads = cp_gradient(V, factors, regul=regul, precision=precision)
-    return jnp.sqrt(sum(jnp.vdot(g, g) for g in grads))
+    return jnp.sqrt(sum_sq(grads))
 
 
 def cp_residual_norm(V_norm_sq, M_last, factors: Sequence, precision=None):

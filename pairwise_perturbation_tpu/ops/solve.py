@@ -1,13 +1,13 @@
 """R x R and low-rank linear-algebra kit.
 
-TPU-native replacements for the reference's ScaLAPACK-backed solves. The
+JAX replacements for the reference's ScaLAPACK-backed solves. The
 Gram matrices S are tiny (R x R) so they are replicated and solved on-chip
 with ``jax.lax.linalg`` primitives — there is no distributed dense LA layer
 to port (SURVEY.md section 2.6).
 
 - :func:`svd_solve`         <-> ``SVD_solve`` (common.cxx:710-725): W = M pinv(S),
                                 via symmetric eigh instead of full SVD (S is
-                                symmetric PSD, eigh == svd and is faster on TPU).
+                                symmetric PSD, eigh == svd and is cheaper).
 - :func:`svd_solve_mod`     <-> ``SVD_solve_mod`` (common.cxx:739-758): damped PP solve.
 - :func:`cholesky_solve`    <-> ``cholesky_solve`` (common.cxx:727-737).
 - :func:`randomized_svd`    <-> ``randomized_svd`` (common.cxx:691-708).
@@ -203,8 +203,8 @@ def randomized_svd(A, r: int, n_iter: int = 1, key=None, precision=None):
                        precision=_prec(precision))
         Q, _ = jnp.linalg.qr(X)
     B = jnp.matmul(A, Q, precision=_prec(precision))
-    # truncated_svd takes the Gram-eigh route for tall B — a direct
-    # svd(B) on e.g. (7200, r) is a QDWH-SVD costing tens of ms on TPU
+    # truncated_svd takes the Gram-eigh route for tall B — cheaper than
+    # a direct svd(B) on e.g. (7200, r)
     U, s, VT_small = truncated_svd(B, r)
     VT = jnp.matmul(VT_small, Q.T, precision=_prec(precision))
     return U, s, VT
@@ -216,9 +216,8 @@ def truncated_svd(A, r: int):
     Tall matrices (the LR kit factorizes dW of shape (s_i, R), e.g.
     7200 x 10 on coil-100) take the Gram-eigh route: G = A^T A is R x R,
     eigh is microseconds, and U = A V diag(1/sigma) — algebraically the
-    same leading factors, where a direct jnp.linalg.svd lowers to a
-    QDWH-SVD costing tens of ms on TPU for the same input (the round-3
-    cpdtlr_step 91 ms mystery, VERDICT r3 weak #4)."""
+    same leading factors at a fraction of a direct jnp.linalg.svd's
+    cost."""
     m, n = A.shape
     if m >= 4 * n:
         G = jnp.matmul(A.T, A, precision=_prec(None))

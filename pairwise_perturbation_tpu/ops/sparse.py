@@ -1,16 +1,15 @@
 """Sparse (COO) tensor kernels for CP-ALS.
 
-TPU-native replacement for the reference's ``-issparse`` path, which
+JAX replacement for the reference's ``-issparse`` path, which
 threads a sparsity flag into every CTF tensor constructor
 (test_ALS.cxx:126-131, 229; run.cxx:137-140) and lets CTF's sparse
 contraction engine do the rest. Here the sparse path is explicit:
 
-- storage is static-shape COO (``indices[nnz, N]`` int32, ``values[nnz]``),
-  the natural TPU layout — nnz is a static dimension, so every kernel
-  compiles once per tensor;
+- storage is static-shape COO (``indices[nnz, N]`` int32, ``values[nnz]``)
+  — nnz is a static dimension, so every kernel compiles once per tensor;
 - the MTTKRP is a gather of factor rows + a Khatri-Rao product on the
-  nonzeros + one ``segment_sum`` scatter-add (XLA lowers this to a sorted
-  segmented reduction on TPU — no dynamic shapes anywhere);
+  nonzeros + one ``segment_sum`` scatter-add (atomic adds on a GPU — no
+  dynamic shapes anywhere);
 - PP pair caches contract the same nonzeros with a fused output index
   (i * s_j + j), yielding the standard dense rank-major caches
   (R, s_i, s_j) — PP sweeps downstream are IDENTICAL to the dense engine
@@ -84,31 +83,29 @@ def to_dense(st: SparseTensor):
 
 def norm_sq(st: SparseTensor):
     acc = jnp.float32 if st.dtype == jnp.bfloat16 else st.dtype
-    return jnp.dot(st.values, st.values, preferred_element_type=acc)
+    return jnp.dot(st.values, st.values, preferred_element_type=acc,
+                   precision=jax.lax.Precision.HIGHEST)
 
 
-# Scatter/gather strategy for the sparse kernels. TPU scatter-adds
-# (segment_sum) and row gathers serialize on the vector unit; the
-# MXU-native alternative is a ONE-HOT MATMUL — M = E^T @ prod for the
-# scatter, rows = E @ W for gathers (exact: single product per output).
-# The one-hot is materialized (nnz * s elements) in the XLA path, so it
-# only pays off while nnz * s stays HBM-friendly; above the budget we
-# fall back to the native ops.
-ONEHOT_BUDGET_ELEMS = 5 * 10**8  # 2 GB at f32 — covers 1.6M x 200 (3.2e8)
+# Scatter/gather strategy for the sparse kernels: the native ops (row
+# gather, segment_sum — gathers and atomic scatter-adds on a GPU) by
+# default, or with ``method="onehot"`` a ONE-HOT MATMUL — M = E^T @ prod
+# for the scatter, rows = E @ W for gathers (exact: one product per
+# output). The one-hot materializes nnz * s elements; on an H100 it was
+# 21x slower than native at the sparse fixture's 1.6M nonzeros
+# (chip_smoke.py phase B times both), so it is kept only as an explicit
+# choice for parity tests. Atomic scatter-adds sum in a different order on
+# every GPU run, so sparse runs there are not bit-reproducible.
 
 
-def _gather_rows(W, idx, method: str = "auto"):
-    """W[idx, :] — factor-row gather, MXU one-hot matmul when it fits.
+def _gather_rows(W, idx, method: str = "native"):
+    """W[idx, :] — factor-row gather, natively or as a one-hot matmul.
 
-    TPU native gathers run ~1 row/cycle on the VPU (measured ~2.6 ms per
-    1.6M-row gather on v5e); the one-hot matmul E @ W computes the SAME
-    rows EXACTLY (each output element is a single product 1.0 * W[i, r]
-    at HIGHEST precision — no summation, no rounding) on the systolic
-    array. results/SPARSE_PERF.md has the measurements."""
-    n, s = idx.shape[0], W.shape[0]
-    if method == "auto":
-        method = "onehot" if n * s <= ONEHOT_BUDGET_ELEMS else "native"
+    The one-hot matmul E @ W computes the SAME rows EXACTLY (each output
+    element is a single product 1.0 * W[i, r] at HIGHEST precision — no
+    summation, no rounding)."""
     if method == "onehot":
+        s = W.shape[0]
         E = (idx[:, None] == jnp.arange(s, dtype=idx.dtype)[None, :])
         return jax.lax.dot_general(
             E.astype(W.dtype), W, (((1,), (0,)), ((), ())),
@@ -117,33 +114,30 @@ def _gather_rows(W, idx, method: str = "auto"):
     return W[idx, :]
 
 
-def _gathered_kr(st: SparseTensor, Ws: Sequence, skip: Tuple[int, ...]):
+def _gathered_kr(st: SparseTensor, Ws: Sequence, skip: Tuple[int, ...],
+                 method: str = "native"):
     """values * prod_{j not in skip} W_j[idx_j, :]  -> (nnz, R)."""
     R = Ws[0].shape[1]
     prod = st.values[:, None] * jnp.ones((1, R), Ws[0].dtype)
     for j in range(st.ndim):
         if j in skip:
             continue
-        prod = prod * _gather_rows(Ws[j], st.indices[:, j])
+        prod = prod * _gather_rows(Ws[j], st.indices[:, j], method)
     return prod
 
 
-def _scatter_rows(prod, idx, n_segments: int, method: str = "auto"):
+def _scatter_rows(prod, idx, n_segments: int, method: str = "native"):
     """sum_n prod[n, :] into rows idx[n] of an (n_segments, R) output.
 
-    ``method``: 'segment' (jax.ops.segment_sum), 'onehot' (MXU matmul),
-    'auto' (one-hot when the materialized one-hot fits the budget).
-    Both are exact in f32: the one-hot matmul accumulates in f32 on the
-    MXU (ones are exact in any float format)."""
-    if method == "auto":
-        method = ("onehot"
-                  if prod.shape[0] * n_segments <= ONEHOT_BUDGET_ELEMS
-                  else "segment")
+    ``method``: 'native' (jax.ops.segment_sum; 'segment' is a synonym)
+    or 'onehot' (matmul). Both are exact in
+    f32 up to summation order: the one-hot matmul accumulates in f32
+    (ones are exact in any float format)."""
     if method == "onehot":
         onehot = (idx[:, None] == jnp.arange(n_segments,
                                              dtype=idx.dtype)[None, :])
-        # HIGHEST precision: TPU default would run the matmul in bf16
-        # passes and round prod — the kernel swap must stay numerically
+        # HIGHEST precision: a DEFAULT-precision f32 matmul may run in
+        # TF32 and round prod — the kernel swap must stay numerically
         # invisible vs segment_sum (f32 summation-order noise only)
         return jax.lax.dot_general(
             onehot.astype(prod.dtype), prod,
@@ -156,15 +150,14 @@ def _scatter_rows(prod, idx, n_segments: int, method: str = "auto"):
 
 
 def mttkrp(st: SparseTensor, Ws: Sequence, mode: int,
-           method: str = "auto"):
+           method: str = "native"):
     """Exact sparse MTTKRP: M[i, r] = sum_nnz v * prod_{j != mode} W_j.
 
     Reference semantics: KhatriRao_contract on a sparse CTF tensor
     (common.cxx:931-997 with V sparse). ``method``: see
-    :func:`_scatter_rows` — 'auto' rides the MXU one-hot matmul when it
-    fits (measured numbers in results/SPARSE_PERF.md).
+    :func:`_scatter_rows`; it selects the gathers too.
     """
-    prod = _gathered_kr(st, Ws, (mode,))
+    prod = _gathered_kr(st, Ws, (mode,), method)
     return _scatter_rows(prod, st.indices[:, mode], st.shape[mode],
                          method)
 
@@ -182,7 +175,7 @@ def pair_cache(st: SparseTensor, Ws: Sequence, i: int, j: int):
                          (2, 0, 1))
 
 
-def build_pp_caches(st: SparseTensor, Ws: Sequence):
+def build_pp_caches(st: SparseTensor, Ws: Sequence, method: str = "native"):
     """All PP caches from the sparse tensor: singles M_i (s_i, R) and
     rank-major pairs T_{ij} (R, s_i, s_j) — the same cache layout as
     contract.build_pp_caches, so PP sweeps are shared with the dense
@@ -194,11 +187,13 @@ def build_pp_caches(st: SparseTensor, Ws: Sequence):
     suffix_k = prod_{j>=k} W_j[idx_j] once, then every pair (i, j)
     product is prefix_i * mid(i..j) * suffix_{j+1} with the mid
     accumulated along j — O(N^2) elementwise (nnz, R) multiplies total
-    instead of O(N^3) when each pair re-gathers its own chain (VERDICT
-    r3 missing #1)."""
+    instead of O(N^3) when each pair re-gathers its own chain.
+    ``method`` selects the gathers and the single-cache scatters (see
+    :func:`_scatter_rows`); pair caches always scatter with segment_sum."""
     order = st.ndim
     R = Ws[0].shape[1]
-    rows = [_gather_rows(Ws[j], st.indices[:, j]) for j in range(order)]
+    rows = [_gather_rows(Ws[j], st.indices[:, j], method)
+            for j in range(order)]
     ones = jnp.ones((st.nnz, R), Ws[0].dtype)
     prefix = [st.values[:, None] * ones]          # prefix[k]: v * prod_{j<k}
     for k in range(order):
@@ -209,7 +204,7 @@ def build_pp_caches(st: SparseTensor, Ws: Sequence):
         suffix[k] = suffix[k + 1] * rows[k]
 
     def scatter_single(prod, i):
-        return _scatter_rows(prod, st.indices[:, i], st.shape[i])
+        return _scatter_rows(prod, st.indices[:, i], st.shape[i], method)
 
     def scatter_pair(prod, i, j):
         fused = st.indices[:, i].astype(jnp.int32) * st.shape[j] \
@@ -235,7 +230,7 @@ def build_pp_caches(st: SparseTensor, Ws: Sequence):
 #
 # The reference threads the sparsity flag into the Tucker CTF tensors too
 # (test_ALS.cxx:229, 364-396) and relies on CTF's sparse contraction
-# engine. TPU-native equivalent: contract ONE mode of the COO tensor with
+# engine. JAX equivalent: contract ONE mode of the COO tensor with
 # a factor via a fused-index segment_sum — the result is a DENSE tensor
 # with that mode reduced to its rank (the same dense intermediate the
 # dense engine's own TTMc chain materializes after one step) — then the
@@ -389,13 +384,12 @@ def mode_power_iter(st: SparseTensor, mode: int, U):
 def cp_gradnorm(st: SparseTensor, Ws: Sequence, regul=None):
     """Exact CP gradient norm against the sparse tensor."""
     from pairwise_perturbation_tpu.ops import contract
-    total = 0.0
+    grads = []
     for i in range(st.ndim):
         M = mttkrp(st, Ws, i)
         S = contract.hadamard_gram(Ws, skip_mode=i, regul=regul)
-        g = contract.gradsubprob(M, S, Ws[i])
-        total = total + jnp.vdot(g, g)
-    return jnp.sqrt(total)
+        grads.append(contract.gradsubprob(M, S, Ws[i]))
+    return jnp.sqrt(contract.sum_sq(grads))
 
 
 def cp_residual_norm(V_norm_sq, st: SparseTensor, Ws: Sequence):

@@ -1,17 +1,18 @@
-"""Device-mesh layer: the TPU-native replacement for CTF's distributed
-tensor runtime (SURVEY.md section 2.6).
+"""Device-mesh layer: the JAX replacement for CTF's distributed tensor
+runtime (SURVEY.md section 2.6).
 
 CTF gives every ``Tensor<>`` an implicit cyclic block decomposition over
 the MPI world and redistributes per contraction. Here the layout engine is
 explicit and static:
 
 - the input tensor V is block-sharded over its largest mode(s) via
-  ``NamedSharding`` on a 1D or 2D ``Mesh`` (ICI-adjacent axes);
+  ``NamedSharding`` on a 1D or 2D ``Mesh`` (the mesh follows the
+  algorithm: the cards of one host are joined all to all);
 - factor matrices are row-sharded on sharded modes, replicated otherwise;
 - every jitted sweep is GSPMD-partitioned by XLA: contractions over a
   sharded mode produce local partial MTTKRPs followed by a single
-  ``psum``/``reduce_scatter`` over ICI — the communication pattern CTF
-  realizes with SUMMA + MPI reductions;
+  ``psum``/``reduce_scatter`` (NCCL on GPUs) — the communication pattern
+  CTF realizes with SUMMA + MPI reductions;
 - an explicit ``shard_map`` MTTKRP (:func:`sharded_mttkrp`) demonstrates /
   pins the manual-collective path and is used to validate that the
   automatic partitioner produces the same results.
@@ -21,9 +22,10 @@ Padding is algebraically invisible to ALS: padded slices of V are zero, so
 padded rows of every MTTKRP (hence of every solved factor) stay zero, Gram
 matrices are unchanged, and norms are unchanged.
 
-Multi-host: :func:`distributed_init` wraps ``jax.distributed.initialize``
-(one process per host, megascale env); replaces ``MPI_Init`` + CTF ``World``
-(test_ALS.cxx:58-60, 198-200).
+Multi-process: :func:`distributed_init` wraps ``jax.distributed.initialize``
+(one process per host); replaces ``MPI_Init`` + CTF ``World``
+(test_ALS.cxx:58-60, 198-200). The cards of one host need none of it: one
+process drives them all.
 """
 
 from __future__ import annotations
@@ -52,8 +54,7 @@ def distributed_init(single_host: bool = False, **kwargs):
     import os
     wants_cluster = bool(kwargs) or any(
         os.environ.get(k) for k in
-        ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS",
-         "MEGASCALE_COORDINATOR_ADDRESS"))
+        ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS"))
     if single_host or not wants_cluster:
         return  # explicit / implied single-host: nothing to initialize
     try:
@@ -119,11 +120,13 @@ def plan_layout(shape: Sequence[int], mesh: Mesh,
 
 
 def shard_tensor(V, layout: ShardedLayout):
-    """Zero-pad sharded modes and place V with its NamedSharding."""
-    V = jnp.asarray(V)
+    """Zero-pad sharded modes and place V with its NamedSharding. A host
+    (numpy) V goes to the devices slice by slice, so no device ever
+    holds the whole tensor."""
+    xp = np if isinstance(V, np.ndarray) else jnp
     pads = [(0, p - s) for s, p in zip(V.shape, layout.padded_shape)]
     if any(p != (0, 0) for p in pads):
-        V = jnp.pad(V, pads)
+        V = xp.pad(V, pads)
     return jax.device_put(V, NamedSharding(layout.mesh, layout.v_spec()))
 
 
@@ -157,8 +160,7 @@ def sharded_mttkrp(V, Ws: Sequence, mode: int, layout: ShardedLayout):
     The contraction over each sharded mode j != mode is computed locally on
     each shard (V block x local rows of W_j) and reduced with one ``psum``
     over that mesh axis — the hand-written version of what GSPMD inserts.
-    Kept as a reference/validation path and a template for a future Pallas
-    ring variant.
+    Kept as a reference/validation path.
     """
     mesh = layout.mesh
     v_spec = layout.v_spec()
@@ -225,7 +227,7 @@ def constrained_pp_caches(V, Ws: Sequence, layout: ShardedLayout):
 # ---------------------------------------------------------------------------
 #
 # The reference's sparse CTF tensors are distributed over the MPI world
-# like the dense ones (test_ALS.cxx:126-131, 229). TPU-native analogue:
+# like the dense ones (test_ALS.cxx:126-131, 229). JAX analogue:
 # shard the COO arrays by NONZERO index (the only long axis), compute
 # per-shard partial MTTKRPs / cache contributions locally, and reduce
 # with one psum over the mesh — scatter-adds into replicated dense
@@ -360,5 +362,5 @@ def sharded_sparse_gradnorm(st, Ws, mesh: Mesh, regul=None):
         M = sharded_sparse_mttkrp(st, Ws, i, mesh)
         S = contract.hadamard_gram(list(Ws), skip_mode=i, regul=regul)
         g = contract.gradsubprob(M, S, Ws[i])
-        total = total + jnp.vdot(g, g)
+        total = total + contract.sum_sq([g])
     return jnp.sqrt(total)

@@ -7,7 +7,7 @@ The reference parses single-dash long options with a hand-rolled scan
 -issparse -resprint -randomsvd -tol -pp_res_tol -lambda -magni -filename
 -tensorfile -colmin -colmax -rationoise -timelimit -maxiter
 
-plus TPU-native additions: -dtype, -mesh, -seed, -checkpoint, -resume,
+plus additions: -dtype, -mesh, -seed, -checkpoint, -resume,
 -device_loop, -layouts, -profile, -trace_dir.
 Defaults and clamping follow test_ALS.cxx:64-196 / run.cxx:67-214.
 """
@@ -51,7 +51,7 @@ def build_parser(prog: str = "pairwise_perturbation_tpu") -> argparse.ArgumentPa
     p.add_argument("-rationoise", type=float, default=0.01)
     p.add_argument("-timelimit", type=float, default=5e3)
     p.add_argument("-maxiter", type=int, default=250)
-    # TPU-native additions
+    # additions to the reference surface
     p.add_argument("-dtype", default="float32",
                    choices=["float32", "float64", "bfloat16"])
     p.add_argument("-mesh", default="", help="e.g. '4' or '2x4' device mesh")

@@ -69,7 +69,7 @@ def read_dense_sharded(path: str, layout, file_dtype="<f8",
                        axes_perm=None):
     """Per-host sharded read of a row-major dense binary.
 
-    The TPU-native replacement for the reference's MPI-IO collective read
+    The JAX replacement for the reference's MPI-IO collective read
     (``MPI_File_open`` + ``V.read_dense_from_file``, test_ALS.cxx:291-304):
     each process reads ONLY the file spans owned by its addressable
     devices (memmap slicing touches just those pages), zero-pads its
@@ -80,7 +80,8 @@ def read_dense_sharded(path: str, layout, file_dtype="<f8",
     ``layout`` is a :class:`...parallel.mesh.ShardedLayout` (from
     ``plan_layout``). ``file_shape``/``axes_perm`` view the on-disk array
     through a transpose BEFORE block extraction (composing the CTF
-    axis-reversal with the TPU tile canonicalization, so real datasets
+    axis-reversal with the tile canonicalization of utils/layout.py, so
+    real datasets
     shard straight from disk in their production mode order):
     ``layout.orig_shape[i] == file_shape[axes_perm[i]]``. Returns a global
     jax.Array with the layout's NamedSharding over the PADDED shape

@@ -1,16 +1,16 @@
-"""Mode-order canonicalization for TPU tile layouts.
+"""Mode-order canonicalization for (8, 128)-tiled layouts.
 
-TPU arrays are tiled (8, 128) over their last two dimensions: the minor
-dimension pads to a multiple of 128 lanes and the second-minor to 8
-sublanes. A tensor whose minor mode is small is catastrophically
-inflated — the reference's time-lapse dataset (33, 1344, 1024, 9)
-(test_ALS.cxx:312-321) occupies 23.3 GB on a TPU in its natural order
-(9 -> 128 lanes, 14x padding) versus 1.63 GB with the 1024-sized mode
-minor. CTF avoids the issue by choosing its own cyclic layouts per
-tensor; here the analogous runtime decision is a one-time mode
-permutation — CP/Tucker ALS are mode-permutation-equivariant, so
-solvers run on the permuted tensor and factors are mapped back at the
-end.
+A layout tiled (8, 128) over the last two dimensions pads the minor
+dimension to a multiple of 128 and the second-minor to 8. A tensor whose
+minor mode is small is then inflated — the reference's time-lapse
+dataset (33, 1344, 1024, 9) (test_ALS.cxx:312-321) by 14x in its natural
+order (9 -> 128) versus ~1x with the 1024-sized mode minor. CTF avoids
+the issue by choosing its own cyclic layouts per tensor; here the
+analogous runtime decision is a one-time mode permutation — CP/Tucker
+ALS are mode-permutation-equivariant, so solvers run on the permuted
+tensor and factors are mapped back at the end. It touches only shapes
+with a small minor mode (the real-data path); whether the permutation
+pays on a GPU, whose arrays are not tiled this way, is not measured yet.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ def _pad_waste(s_sub: int, s_lane: int) -> float:
 
 
 def canonical_perm(shape: Sequence[int]) -> Tuple[int, ...]:
-    """Mode permutation minimizing TPU tile padding.
+    """Mode permutation minimizing (8, 128) tile padding.
 
     Picks the (second-minor, minor) pair with the least padding waste —
     ties broken toward keeping the natural order — and orders the
@@ -70,7 +70,7 @@ def canonical_perm_or_identity(shape: Sequence[int],
 
 
 def canonicalize(V: np.ndarray, threshold: float = 1.10):
-    """Permute V's modes for TPU tiling when the natural layout wastes
+    """Permute V's modes for (8, 128) tiling when the natural layout wastes
     more than ``threshold`` in padding. Returns (V_perm, perm) with
     ``V_perm = transpose(V, perm)``; perm is the identity when the
     natural layout is already fine."""

@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Experiment-suite generator — TPU-native replacement for the reference's
+"""Experiment-suite generator — replacement for the reference's
 SLURM script generators (script/script_{synthetic,real,strongscaling,
 weakscaling}.py).
 
 Emits bash scripts of CLI invocations. Scaling suites size the problem with
 the reference's laws (size = 32 * n^(1/6), rank = 4 * n^(1/6) for dim-6;
 size = 13 * n^(1/8) for dim-8 Poisson, script_synthetic.py:43-64) where
-``n`` counts TPU hosts instead of CPU nodes; multi-host lines carry the
-``-mesh`` flag so V is sharded over the pod slice.
+``n`` counts GPUs instead of CPU nodes; multi-GPU lines carry the
+``-mesh`` flag so V is sharded over the cards.
 
 Usage:
     python scripts/gen_experiments.py synthetic --hosts 1 4

@@ -1,36 +1,23 @@
 #!/usr/bin/env bash
-# One-command release gate for the framework (production-deployment
-# hygiene): CPU suite (virtual 8-device mesh + real 2-process
-# clusters), on-chip parity tests, a TPU CLI smoke of every driver
-# family, and a headline bench sanity check.
+# One-command release gate: the CPU suite (virtual 8-device mesh + real
+# 2-process clusters), then, on a machine with an NVIDIA GPU, the card
+# smoke test (chip_smoke.py: f64-reference parity, the main path end to
+# end, tests_gpu/) and a headline bench sanity check.
 #
-# Usage: bash scripts/release_check.sh [--skip-tpu]
+# Usage: bash scripts/release_check.sh [--skip-gpu]
 set -uo pipefail
 cd "$(dirname "$0")/.."
-SKIP_TPU="${1:-}"
+SKIP_GPU="${1:-}"
 fail=0
 
 step() { echo; echo "=== $1"; }
 
 step "CPU suite (tests/, includes multi-process clusters)"
-python -m pytest tests/ -q || fail=1
+JAX_PLATFORMS=cpu python -m pytest tests/ -q || fail=1
 
-if [ "$SKIP_TPU" != "--skip-tpu" ]; then
-    step "on-chip parity (tests_tpu/)"
-    timeout 1200 python -m pytest tests_tpu/ -q || fail=1
-
-    step "TPU CLI smoke (one per driver family)"
-    CLI="python -m pairwise_perturbation_tpu.cli"
-    smoke() { timeout 900 $CLI "$@" -quiet -filename /tmp/rc.csv \
-        || { echo "SMOKE FAILED: $*"; fail=1; }; }
-    smoke test_als -model CP -tensor r -pp 1 -dim 4 -size 16 -rank 4 \
-        -maxiter 10 -device_loop 2
-    smoke test_als -model Tucker -tensor r2 -pp 1 -dim 4 -size 16 \
-        -rank 4 -maxiter 8
-    smoke test_als -model CP -tensor p -pp 1 -dim 8 -size 5 -rank 3 \
-        -maxiter 10 -issparse 1
-    smoke run -tensor r -pp 1 -dim 4 -size 14 -rank 3 -maxiter 8
-    smoke pp_bench -model CP -tensor r -dim 4 -size 16 -rank 4 -maxiter 3
+if [ "$SKIP_GPU" != "--skip-gpu" ]; then
+    step "card smoke test (chip_smoke.py, phases A-D)"
+    timeout 1200 python chip_smoke.py || fail=1
 
     step "headline bench sanity (one JSON line, finite value)"
     out="$(timeout 1800 python bench.py | tail -1)"

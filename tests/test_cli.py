@@ -163,7 +163,7 @@ def test_graft_entry_compiles():
 
 
 def test_layout_canonicalize_timelapse_shape():
-    """time-lapse (33,1344,1024,9): natural order lane-pads 9 -> 128
+    """time-lapse (33,1344,1024,9): natural order (8, 128)-pads 9 -> 128
     (14x memory); canonicalization must put a low-padding mode minor."""
     from pairwise_perturbation_tpu.utils import layout
 

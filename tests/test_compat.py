@@ -33,7 +33,7 @@ def test_csv_parses_like_visdom_server(tmp_path):
 
 def test_seeded_init_is_device_count_invariant():
     """init_factors must be identical regardless of how many devices exist —
-    the TPU-native version of the reference's MPI_COMM_SELF subworld trick
+    the JAX version of the reference's MPI_COMM_SELF subworld trick
     (run.cxx:292-322)."""
     shape, R = (6, 7, 8), 3
     a = cp.init_factors(shape, R, key=jax.random.PRNGKey(7),

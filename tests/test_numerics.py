@@ -31,7 +31,7 @@ def test_auto_solve_uses_cholesky_when_spd(rng):
 
 
 def test_collinearity_f32_tracks_f64(rng):
-    """The 'c' fixture makes S near-singular; the f32 path (TPU reality)
+    """The 'c' fixture makes S near-singular; the f32 path (the default)
     must track the f64 trajectory within loose tolerance."""
     V = synth.make_tensor("c", dim=4, s=8, R=3, seed=1, dtype=np.float64)
     Vn = np.linalg.norm(V)

@@ -106,7 +106,7 @@ def test_msdt_cycle_matches_steps(rng):
 
 
 def test_msdt_min_holdout_rotation_and_convergence(rng):
-    """Restricted hold-out rotation (TPU extension, opt-in): tiny modes are
+    """Restricted hold-out rotation (extension, opt-in): tiny modes are
     never held out, every step still updates order-1 modes, and the solver
     converges on a skewed exact-rank problem."""
     shape, R = (2, 8, 9, 10), 3

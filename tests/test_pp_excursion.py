@@ -1,4 +1,4 @@
-"""Regression tests for the round-1 "PP excursion" (results/tpu_cp_pp.csv
+"""Regression tests for the round-1 "PP excursion" (a recorded trajectory
 iter 30: diffV 34 -> 264 inside a PP phase).
 
 Diagnosis (reproduced in f64 on the 64^4 rank-8 'r' config): the true

@@ -246,7 +246,8 @@ def test_resolve_subspace_iters():
 
 
 def test_tucker_auto_matches_exact_fitness(rng):
-    # mode 0 (size 300) has m = 20*20 = 400 >= s_i -> eigh side 300 >= 256:
+    # mode 0 (size 300) has m = 20*20 = 400 >= s_i -> eigh side 300 >= the
+    # AUTO threshold:
     # the auto path triggers for that mode only.
     shape, ranks = (300, 20, 20), (10, 8, 8)
     core = rng.standard_normal(ranks)

@@ -49,6 +49,25 @@ def test_sparse_pair_caches_match_dense(rng):
                                    rtol=1e-9, atol=1e-12)
 
 
+@pytest.mark.parametrize("entry", ["mttkrp", "pp_caches"])
+def test_sparse_onehot_matches_dense(rng, entry):
+    """The explicit one-hot gathers/scatters give the dense results too."""
+    V, st, Ws = _sparse_problem(rng)
+    if entry == "mttkrp":
+        got = [spo.mttkrp(st, Ws, m, method="onehot") for m in range(V.ndim)]
+        want = [contract.mttkrp(jnp.asarray(V), Ws, m) for m in range(V.ndim)]
+    else:
+        single_s, pair_s = spo.build_pp_caches(st, Ws, method="onehot")
+        single_d, pair_d = contract.build_pp_caches(jnp.asarray(V), list(Ws))
+        got = [single_s[i] for i in sorted(single_d)] + [
+            pair_s[k] for k in sorted(pair_d)]
+        want = [single_d[i] for i in sorted(single_d)] + [
+            pair_d[k] for k in sorted(pair_d)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w),
+                                   rtol=1e-9, atol=1e-12)
+
+
 def test_sparse_diagnostics_match_dense(rng):
     V, st, Ws = _sparse_problem(rng)
     Vj = jnp.asarray(V)
@@ -443,7 +462,7 @@ def test_cli_issparse_tucker_mesh(tmp_path):
 
 
 def test_scatter_rows_onehot_matches_segment(rng):
-    """The MXU one-hot matmul scatter == segment_sum, for every dtype the
+    """The one-hot matmul scatter == segment_sum, for every dtype the
     engine runs (the 'auto' kernel swap must be numerically invisible)."""
     nnz, s, R = 500, 37, 6
     idx = jnp.asarray(rng.integers(0, s, size=nnz).astype(np.int32))
@@ -463,23 +482,15 @@ def test_scatter_rows_onehot_matches_segment(rng):
 
 
 def test_mttkrp_onehot_lowering_has_no_scatter(rng):
-    """Pin the kernel-selection behavior at the HLO level: under the
-    one-hot budget the lowered sparse MTTKRP contains dot ops and NO
-    scatter/gather-style serialization; above the budget it falls back
-    to segment_sum (scatter present). Guards against silently regressing
-    the 6x MXU path (results/SPARSE_PERF.md)."""
+    """Pin the kernel selection at the HLO level: with method="onehot"
+    the lowered sparse MTTKRP contains dot ops and NO scatter; the
+    default (native) lowers to segment_sum (scatter present)."""
     import jax
     V, st, Ws = _sparse_problem(rng, shape=(7, 6, 8, 5))
-    lowered = jax.jit(lambda Ws: spo.mttkrp(st, list(Ws), 0)).lower(Ws)
+    lowered = jax.jit(lambda Ws: spo.mttkrp(st, list(Ws), 0,
+                                            method="onehot")).lower(Ws)
     hlo = lowered.as_text()
-    assert "scatter" not in hlo, "auto path regressed to scatter"
+    assert "scatter" not in hlo, "one-hot path regressed to scatter"
     assert "dot" in hlo
-    # above budget: segment fallback (scatter present)
-    old = spo.ONEHOT_BUDGET_ELEMS
-    try:
-        spo.ONEHOT_BUDGET_ELEMS = 1
-        lowered2 = jax.jit(
-            lambda Ws: spo.mttkrp(st, list(Ws), 0)).lower(Ws)
-        assert "scatter" in lowered2.as_text()
-    finally:
-        spo.ONEHOT_BUDGET_ELEMS = old
+    lowered2 = jax.jit(lambda Ws: spo.mttkrp(st, list(Ws), 0)).lower(Ws)
+    assert "scatter" in lowered2.as_text()
